@@ -1,4 +1,4 @@
-"""Batched multi-start gate synthesis — the TPU-native scaling axis.
+"""Batched multi-start gate synthesis — the batch as the scaling axis.
 
 Thousands of rollout-consistent seeds advance in lockstep through the batched
 interior-point method; the whole batch is one jit-compiled while_loop, and

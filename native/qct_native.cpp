@@ -1,7 +1,7 @@
 // qct_native — host-side native kernels for quantumcollocation_tpu.
 //
 // The reference stack's only native component is Ipopt's sparse KKT
-// factorization (/root/reference/README.md:93). The TPU framework solves its
+// factorization (/root/reference/README.md:93). The framework solves its
 // KKT systems on-device (solver/kkt.py); this library provides the host-side
 // native complement:
 //

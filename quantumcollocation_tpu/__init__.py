@@ -1,4 +1,4 @@
-"""quantumcollocation_tpu — TPU-native direct collocation for quantum optimal control.
+"""quantumcollocation_tpu — batched direct collocation for quantum optimal control.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 QuantumCollocation.jl stack (see SURVEY.md): quantum control problems are
@@ -6,7 +6,7 @@ nonlinear programs over knot-point trajectories (U_t, a_t, Δt_t) with dynamics
 enforced as collocation defects, solved by an in-house batched primal-dual
 interior-point method whose block-tridiagonal KKT system is factorized
 stage-wise — all knots, all batch instances, and all multi-start seeds in
-parallel on TPU.
+parallel on the accelerator.
 """
 
 from .quantum import *  # noqa: F401,F403

@@ -2,10 +2,11 @@
 
 The collocation hot path evaluates exp(G(a_t) * dt_t) for every knot t and
 every batch instance.  jax.scipy.linalg.expm uses data-dependent norm-based
-squaring — fine on CPU, but on TPU the dynamic control flow blocks fusion.
+squaring — fine on CPU, but on an accelerator the dynamic control flow
+blocks fusion.
 Here the number of squarings is STATIC, derived at trace time from an upper
 bound on ||G*dt|| (known from control bounds), so the whole propagator bank
-compiles to a fixed chain of batched matmuls that XLA can tile onto the MXU.
+compiles to a fixed chain of batched matmuls.
 
 Padé coefficients follow the classic diagonal [m/m] approximant
 exp(X) ≈ q_m(-X)^{-1} q_m(X), the same family the reference's
@@ -183,8 +184,7 @@ def expm_frechet_bank(
     propagator: Horner/Gauss-solve/squaring recursions carry the derivative
     matrices alongside the primal (Al-Mohy & Higham's expm_frechet scheme,
     extended to second order).  Everything is a fixed chain of (n, n)
-    matmuls — batched over knots/instances by vmap, kernelized by the Pallas
-    lanes bank in ops/pallas_prop_bank.py.
+    matmuls — batched over knots/instances by vmap.
 
     Role parity: the reference's hot-path dynamics evaluators F/∂F/μ∂²F
     (/root/reference/test/scripts/integrator_test_script.jl:45-52).

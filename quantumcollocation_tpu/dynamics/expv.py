@@ -2,7 +2,7 @@
 
 The reference's default rollout integrator is ExponentialAction.jl's `expv`
 (/root/reference/src/trajectory_initialization.jl:398) — a matrix-free
-action that never forms exp(tA).  This module provides the TPU-native
+action that never forms exp(tA).  This module provides the batched
 equivalent for LARGE generators (composite/cat Hilbert spaces,
 /root/reference/src/quantum_system_templates/cats.jl:9-53) where the dense
 scaling-and-squaring propagator bank is prohibitive:

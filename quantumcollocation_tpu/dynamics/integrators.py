@@ -103,7 +103,7 @@ class UnitaryExponentialIntegrator(AbstractIntegrator):
 
     The iso-vec state is reshaped to the (2N, N) iso operator so the
     propagator application is one (2N,2N)@(2N,N) matmul per knot — batched
-    over knots and instances on the MXU.
+    over knots and instances.
     """
 
     state_name: str

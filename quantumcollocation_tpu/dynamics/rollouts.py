@@ -87,10 +87,9 @@ def _rollout_states(Gs, dts, x0_mat, integrator, order, num_squarings):
     """Dispatch on the rollout integrator hook (PiccoloOptions.rollout_integrator).
 
     Always runs at "highest" matmul precision: rollouts are GROUND-TRUTH
-    validators (and initializers), and the TPU default bf16 matmul passes
-    accumulate visible error over T sequential propagator applications
-    (measured: a T=51 unitary rollout at default precision reported
-    fidelity 1.13 — 13% off a value that cannot exceed 1)."""
+    validators (and initializers), and reduced-precision products (TF32 on
+    the GPU) accumulate visible error over T sequential propagator
+    applications."""
     with jax.default_matmul_precision("highest"):
         if integrator == "expv":
             X = Gs * dts[:, None, None]
@@ -302,8 +301,8 @@ def rollout_fidelity(
     trajectory's controls and compare with the goal.
 
     The whole computation runs as ONE jitted call (cached per integrator/
-    shape): eager per-op dispatch would pay a relay round trip per op on
-    remote TPU runtimes, and no complex array ever exists device-side."""
+    shape) instead of many eager ops, and no complex array ever exists
+    device-side."""
     a, dts = _traj_controls(traj, drive_name)
     psi0 = jnp.asarray(traj.initial[state_name])
     goal = jnp.asarray(traj.goal[state_name])

@@ -1,12 +1,13 @@
 """Device-mesh utilities for batched gate synthesis.
 
 Parallelism design (SURVEY.md §5/§7): gate-synthesis instances and multi-start
-seeds are embarrassingly parallel — the TPU-native scaling axis is the
-instance BATCH, sharded over the ICI mesh with jax.sharding; the stage-wise
-KKT factorization stays per-instance (never sharded), so the only collectives
-XLA inserts are scalar reductions (convergence voting / aggregate metrics)
-that ride ICI.  This replaces the reference's single-process Ipopt loop
-(no distributed backend exists upstream; .github/workflows/CI.yml:20-27).
+seeds are embarrassingly parallel — the scaling axis is the instance BATCH,
+sharded over a flat 1-D device mesh (the cards of a host are joined all to
+all, so the mesh follows the algorithm alone); the stage-wise KKT
+factorization stays per-instance (never sharded), and the solve loop runs
+under shard_map with no collectives at all.  This replaces the reference's
+single-process Ipopt loop (no distributed backend exists upstream;
+.github/workflows/CI.yml:20-27).
 """
 
 from __future__ import annotations
@@ -34,16 +35,15 @@ def init_distributed(
     """Multi-host (DCN) wiring: initialize the JAX distributed runtime so
     `jax.devices()` spans every host's chips and one `Mesh` covers the pod.
 
-    On Cloud TPU pods all arguments auto-detect (call with no args in each
-    host process).  After this, a real pod run is:
+    Pass the coordinator address (`host:port`), the process count and this
+    process's id unless the cluster environment provides them.  After this,
+    a multi-host run is:
 
-        init_distributed()
+        init_distributed(...)
         mesh = make_mesh()                      # all global devices
         Z0 = make_global_batch(local_Z0, mesh)  # per-host shards -> global
-        res = problem.solver.solve(Z0)
+        res = batched_solve(problem, Z0, mesh=mesh)
 
-    The solve compiles identically to the single-host path; batch collectives
-    (the all-converged vote) ride ICI within a slice and DCN across slices.
     Idempotent: a second call is a no-op.
     """
     # NOTE: must not call jax.process_count()/jax.devices() here — those
@@ -102,6 +102,36 @@ def replicate(tree, mesh: Mesh):
     )
 
 
+def _mesh_runners(solver, mesh, max_iter, axis_name):
+    """(init, run) jitted for this solver, mesh and iteration count —
+    built once and kept on the solver, so repeated solves reuse the
+    compiled executables."""
+    cache = solver.__dict__.setdefault("_mesh_runners", {})
+    key = (mesh, max_iter, axis_name)
+    if key not in cache:
+        spec = P(axis_name)
+        # batch-sharded out_shardings on the init: leaves created inside
+        # (zeros, filters) would otherwise come out replicated, and a
+        # post-hoc device_put reshard of replicated multi-process arrays
+        # trips XLA's device-order reshard assertion
+        init = jax.jit(
+            solver.init_state, out_shardings=NamedSharding(mesh, spec)
+        )
+        # the per-shard all-converged exit is local to each device (no
+        # collective inside shard_map) — except across processes, where
+        # every process keeps the same fixed trip count
+        early_exit = jax.process_count() == 1
+        run = jax.jit(jax.shard_map(
+            lambda st: solver._solve_loop_impl(st, max_iter, early_exit),
+            mesh=mesh,
+            in_specs=spec,
+            out_specs=spec,
+            check_vma=False,
+        ))
+        cache[key] = (init, run)
+    return cache[key]
+
+
 def batched_solve(problem, Z0, *, mesh: Mesh | None = None, max_iter=None,
                   axis_name: str = "batch"):
     """Solve a batch of initial decisions, sharded across a device mesh.
@@ -109,49 +139,26 @@ def batched_solve(problem, Z0, *, mesh: Mesh | None = None, max_iter=None,
     problem: a QuantumControlProblem; Z0: (B, T, d_aug) with B divisible by
     the mesh size.
 
-    Single-process: the solve compiles once under pjit; XLA partitions every
-    batched op and inserts only scalar collectives (the all-converged vote
-    + the factorization-retry vote).
-
-    Multi-process: the loop runs under shard_map with per-shard specs, so
-    each process advances ITS instances with ZERO cross-process collectives
-    during the solve (the IPM is element-wise over the batch; data-dependent
-    loop conditions — convergence vote, delta_w retry vote — become
-    per-shard instead of global).  Measured over localhost TCP those pred[]
-    all-reduces cost ~25-50 ms each per iteration, 1.4x total wall; on ICI
-    they would be ~us, but zero is better than either and the per-shard
-    retry semantics are also strictly cheaper (a hard instance on one host
-    no longer forces extra factorization attempts on every other host).
+    The loop runs under shard_map with per-shard specs, so each device
+    advances ITS instances with ZERO collectives during the solve (the IPM
+    is element-wise over the batch; the data-dependent loop conditions —
+    convergence vote, delta_w retry vote — are per shard).  That also keeps
+    a custom kernel (the triton KKT backend) on each device's own shard.
+    Per instance the iterates match the unsharded solve: converged
+    instances freeze and a successful factorization attempt is never
+    replaced, so a shard's extra loop trips change no instance.
     """
     if mesh is None:
         mesh = make_mesh()
     Z0 = shard_batch(Z0, mesh)
     solver = problem.solver
-    if jax.process_count() == 1:
-        return solver.solve(Z0, max_iter=max_iter)
-
     import jax.numpy as jnp
 
     from ..solver.ipm import IPMResult
 
     max_iter = max_iter or solver.options.max_iter
-    # batch-sharded out_shardings on the init: leaves created inside
-    # (zeros, filters) would otherwise come out replicated, and a post-hoc
-    # device_put reshard of replicated multi-process arrays trips XLA's
-    # device-order reshard assertion
-    state = jax.jit(
-        solver.init_state,
-        out_shardings=NamedSharding(mesh, P(axis_name)),
-    )(Z0)
-    spec = P(axis_name)
-    run = jax.jit(jax.shard_map(
-        lambda st: solver._solve_loop_impl(st, max_iter, False),
-        mesh=mesh,
-        in_specs=spec,
-        out_specs=spec,
-        check_vma=False,
-    ))
-    state = run(state)
+    init, run = _mesh_runners(solver, mesh, max_iter, axis_name)
+    state = run(init(Z0))
     obj = solver._batched_cost(state.Z)
     Z_out = (
         state.Z * jnp.asarray(solver.var_scale, state.Z.dtype)

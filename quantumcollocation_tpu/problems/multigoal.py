@@ -1,7 +1,7 @@
 """Multi-goal batched unitary synthesis: thousands of DIFFERENT target gates
 solved in lockstep by ONE compiled IPM executable.
 
-TPU-native design note (no reference counterpart — the reference solves one
+Design note (no reference counterpart — the reference solves one
 problem per Ipopt invocation): for full-space unitary synthesis the goal can
 be moved out of the objective and into per-instance *data* by the change of
 variables

@@ -1,7 +1,7 @@
 """QuantumControlProblem: compile trajectory + objective + integrators +
 constraints into a StageNLP and solve with the batched interior-point method.
 
-This is the TPU-native analog of the reference's QuantumControlProblem /
+This is the batched analog of the reference's QuantumControlProblem /
 QuantumDynamics assembly + Ipopt registration (surface: SURVEY.md §2b,
 call sites /root/reference/src/problem_templates/unitary_smooth_pulse_problem.jl:181-190
 and field uses unitary_minimum_time_problem.jl:117-130).
@@ -352,9 +352,8 @@ class QuantumControlProblem:
                 )
 
         # dynamics states rolled out under the perturbed controls — ONE
-        # jitted vmapped device call per integrator (a per-seed Python loop
-        # would pay a dispatch round trip per seed, which dominates on
-        # relayed TPU runtimes)
+        # jitted vmapped device call per integrator (not a per-seed Python
+        # loop of device calls)
         a_j = jnp.asarray(a_all)
         for ig in self.integrators:
             if isinstance(
@@ -393,7 +392,7 @@ class QuantumControlProblem:
         """Batched multi-start solve: diverse rollout-consistent seeds
         advance in lockstep; the best (lowest objective) is kept.
 
-        This is the TPU-native answer to nonconvexity — a batch of seeds
+        This is the batched answer to nonconvexity — a batch of seeds
         costs barely more than one solve on accelerator hardware.
         """
         Z0 = self.multistart_initial_decisions(n_seeds, sigma=sigma, rng=rng)

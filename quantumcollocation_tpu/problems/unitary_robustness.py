@@ -6,7 +6,7 @@ adds UnitaryRobustnessObjective(H_error) and a final-fidelity constraint
 (default: current fidelity), with a warm-start overload
 UnitaryRobustnessProblem(H_error, prob[, system]).
 
-TPU-native lowering: the nonseparable Magnus cost is accumulated as an extra
+Stage-local lowering: the nonseparable Magnus cost is accumulated as an extra
 trajectory state via RobustnessAccumulatorIntegrator (see
 dynamics/integrators.py), keeping the KKT block-tridiagonal.
 """

@@ -7,10 +7,8 @@ quantum_state_minimum_time_problem.jl:50).
 
 Every function that can appear on the solver/objective path is implemented
 in REAL arithmetic on the iso representations directly: no complex array is
-ever materialized device-side, so these are safe to evaluate eagerly on TPU
-runtimes whose complex transfers are unimplemented (the round-2 judge
-root-caused a `prob.solve()` TPU crash to exactly that: an eager
-iso_vec -> complex-operator conversion inside the objective).
+ever materialized device-side, so these evaluate eagerly or under jit
+without any complex device array.
 
 Host (numpy) inputs stay on host via the `_xp` dispatch; traced/device
 inputs use jnp.  Subspace restriction is a static index gather.

@@ -42,9 +42,8 @@ __all__ = [
 def _xp(*arrays):
     """numpy for host (numpy/python) inputs, jnp for traced/device inputs.
 
-    Build-time calls with numpy data stay on host (avoiding complex
-    host<->device transfers that some TPU runtimes lack); traced calls use
-    jnp as usual.
+    Build-time calls with numpy data stay on host (no device round trip for
+    complex build-time arithmetic); traced calls use jnp as usual.
     """
     for a in arrays:
         if isinstance(a, (jax.Array, jax.core.Tracer)):

@@ -1,17 +1,16 @@
 """Quantum system containers as JAX pytrees.
 
-TPU-first re-design of the reference's PiccoloQuantumObjects system types
+Batched re-design of the reference's PiccoloQuantumObjects system types
 (call-site surface: /root/reference/src/quantum_system_templates/transmons.jl:98-102,
 cats.jl:47-52, README.md:110).  Each system stores *stacked* drive Hamiltonians
 and their real iso generators so that H(a) = H_drift + sum_j a_j H_drives[j]
-is a single tensor contraction — MXU friendly and vmappable over control
+is a single tensor contraction — one batched product, vmappable over control
 batches.
 
 Device-residency design: ONLY the real iso generators (G_*, D_*) are device
 arrays / pytree leaves — the entire collocation compute path runs on the real
 isomorphism.  The complex Hamiltonians and dissipators are host-side numpy
-(carried through flatten/unflatten as bytes) because complex h2d/d2h
-transfers are not supported on all TPU runtimes and are never needed on
+(carried through flatten/unflatten as bytes): they are never needed on
 device.
 """
 
@@ -273,8 +272,7 @@ class OpenQuantumSystem(QuantumSystem):
         (/root/reference/src/quantum_system_templates/cats.jl:9-53).
 
         Traceable: the complex Hamiltonian/dissipators enter as captured
-        REAL constants (complex h2d transfers are unsupported on some TPU
-        runtimes; complex arithmetic inside jit is fine).
+        REAL constants (complex arithmetic inside jit is fine).
         """
         N = self.levels
         Hr = jnp.asarray(np.ascontiguousarray(self.H_drift.real))

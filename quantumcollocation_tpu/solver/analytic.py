@@ -202,108 +202,6 @@ class AnalyticStageDynamics:
         )(X, dX, d2X)
         return (Nm, dN, d2N, Dm, dD, d2D)
 
-    # ------------------------------------------------------------------ #
-    # batched bank evaluation (outside the IPM's per-instance vmap so the
-    # Pallas kernel sees the FULL (batch x knots) lane population)
-    # ------------------------------------------------------------------ #
-    def banks_batched(
-        self, Z_batch, *, second_order: bool, use_kernel: bool | None = None,
-        interpret: bool = False,
-    ):
-        """Banks for a (B, T, d) decision tensor: tuple over groups of bank
-        tuples with leading axes (B, T-1, ...).  On TPU the banks run as ONE
-        Pallas lanes kernel per group over all B*(T-1) (instance, knot)
-        pairs; elsewhere (or with use_kernel=False) the pure-JAX bank is
-        vmapped over the batch."""
-        if use_kernel is None:
-            # respect jax.default_device(cpu) contexts (bench/_build_ctx
-            # warm solves): default_backend() stays "tpu" there, but the
-            # computation lowers for CPU, where a non-interpret pallas_call
-            # fails with "Only interpret mode is supported on CPU backend"
-            dev = jax.config.jax_default_device
-            platform = (
-                getattr(dev, "platform", dev)
-                if dev is not None
-                else jax.default_backend()
-            )
-            use_kernel = platform == "tpu"
-        if not use_kernel:
-            return jax.vmap(
-                lambda Z: tuple(
-                    self._bank(
-                        self._phys(Z), g,
-                        first_order=True, second_order=second_order,
-                    )
-                    for g in self.groups
-                )
-            )(Z_batch)
-
-        from ..ops.pallas_prop_bank import prop_bank_lanes
-
-        Zp = self._phys(Z_batch)  # (B, T, d)
-        B = Zp.shape[0]
-        Tm1 = self.T - 1
-        banks = []
-        for g in self.groups:
-            a = Zp[:, :-1, g.a_slice[0]:g.a_slice[1]].reshape(-1, g.G_drives.shape[0])
-            if g.dt_col is not None:
-                dts = Zp[:, :-1, g.dt_col].reshape(-1)
-            else:
-                dts = jnp.full((B * Tm1,), g.dt_static, Zp.dtype)
-            out = prop_bank_lanes(
-                a, dts,
-                jnp.asarray(g.G_drift, Zp.dtype),
-                jnp.asarray(g.G_drives, Zp.dtype),
-                kind=g.kind,
-                order=g.order,
-                num_squarings=g.num_squarings,
-                free_dt=g.dt_col is not None,
-                second_order=second_order,
-                interpret=interpret,
-            )
-            banks.append(
-                tuple(
-                    x.reshape(B, Tm1, *x.shape[1:]) if x is not None else None
-                    for x in out
-                )
-            )
-        return tuple(banks)
-
-    def assembly_batched(
-        self, Z_batch, lam_batch, *, use_kernel: bool | None = None,
-        interpret: bool = False,
-    ):
-        """FULLY fused F/A/B/Hc/Cc for a (B, T, d) SCALED decision tensor
-        and (B, T-1, s) SCALED multipliers: one Pallas kernel over all
-        (instance, knot) lanes (ops/pallas_dyn_assembly.py), replacing
-        banks_batched + per-instance dyn_eval + defect_curvature.  Returns
-        None when the kernel path is unavailable (non-TPU and interpret
-        False)."""
-        if use_kernel is None:
-            dev = jax.config.jax_default_device
-            platform = (
-                getattr(dev, "platform", dev)
-                if dev is not None
-                else jax.default_backend()
-            )
-            use_kernel = platform == "tpu"
-        if not (use_kernel or interpret):
-            return None
-        from ..ops.pallas_dyn_assembly import (
-            dyn_assembly_lanes,
-            spec_from_analytic,
-        )
-
-        spec = spec_from_analytic(self)
-        G_consts = []
-        for g in self.groups:
-            G_consts.append(jnp.asarray(g.G_drift, Z_batch.dtype))
-            G_consts.append(jnp.asarray(g.G_drives, Z_batch.dtype))
-        return dyn_assembly_lanes(
-            Z_batch, lam_batch, tuple(G_consts), spec=spec,
-            interpret=interpret,
-        )
-
     @staticmethod
     def _umats(Zp, u0, u1, nrows):
         """State iso-vec slice -> (T, nrows, ncols) matrices (iso layout:
@@ -361,19 +259,16 @@ class AnalyticStageDynamics:
     # ------------------------------------------------------------------ #
     # F + ∂F (+ bank aux for μ∂²F)
     # ------------------------------------------------------------------ #
-    def dyn_eval(self, Z, *, second_order: bool, banks=None):
+    def dyn_eval(self, Z, *, second_order: bool):
         """Returns (F, A, B, aux): defects, Jacobian blocks (T-1, s, d), and
-        the bank aux consumed by defect_curvature.  Scaled units.  `banks`
-        (from banks_batched, sliced per instance by vmap) skips the in-line
-        bank evaluation."""
+        the bank aux consumed by defect_curvature.  Scaled units."""
         Zp = self._phys(Z)
         Tm1, d, s = self.T - 1, self.d, self.s
         dtype = Z.dtype
-        if banks is None:
-            banks = [
-                self._bank(Zp, g, first_order=True, second_order=second_order)
-                for g in self.groups
-            ]
+        banks = [
+            self._bank(Zp, g, first_order=True, second_order=second_order)
+            for g in self.groups
+        ]
         F = self._defect_rows(Zp, banks)
 
         A = jnp.zeros((Tm1, s, d), dtype)

@@ -2,7 +2,7 @@
 
 This replaces the reference stack's only native component — Ipopt's sparse
 KKT factorization (MUMPS/HSL; /root/reference/README.md:93) — with a
-TPU-native structured factorization: the trajectory KKT system
+structured factorization for the accelerator: the trajectory KKT system
 
     [ H̄_t      C_t        A_t^T ]
     [ C_t^T    H̄_{t+1}    B_t^T ]   (symmetric quasi-definite after
@@ -10,8 +10,8 @@ TPU-native structured factorization: the trajectory KKT system
 
 is eliminated stage by stage.  Each elimination step is two small Cholesky
 factorizations (d and s) plus a handful of small matmuls — a lax.scan over
-knots, vmapped over thousands of batch instances so every step is a large
-batched matmul on the MXU.  Quasi-definiteness (H̄ ≻ 0 via barrier + δ_w,
+knots, vmapped over thousands of batch instances.  (kkt_triton.py runs the
+same elimination as one fused kernel per sweep.)  Quasi-definiteness (H̄ ≻ 0 via barrier + δ_w,
 -δ_c I ≺ 0) guarantees the factorization exists without pivoting.
 
 The factorization and the rhs solve are split (`factor_kkt` /

@@ -2,7 +2,7 @@
 
 The Riccati scan in kkt.py is work-optimal for huge instance batches (every
 scan step is a large batched matmul over B), but at B=1 its T sequential
-stages leave the MXU idle: per-step matrices are ~30x30 and the critical
+stages leave the device idle: per-step matrices are ~30x30 and the critical
 path is O(T) tiny kernels.  This backend restructures the SAME saddle
 system as block cyclic reduction: pair each knot's primal row with its
 defect-constraint row into one stage block
@@ -36,15 +36,10 @@ reference delegates to Ipopt's sparse multifrontal factorization
 (/root/reference/README.md:93) when only one problem instance is in
 flight (interactive / latency-critical use).
 
-Cross-validated against the sequential-scan backends in
-tests/test_kkt_cr.py; latency measured by scripts/tpu_b1_latency.py.
-MEASURED (real v5e chip, 2026-08-20, artifacts/tpu_b1_latency_r03.json):
-at B=1 the cr backend runs correctly on TPU but is 1.9x slower than the
-xla scan at T=51 and 2.4x at T=201 — the ~2x FLOP overhead plus the eigh
-eliminations outweigh the O(log T) depth win at these horizons, and the
-lanes Pallas backend is the actual B=1 latency winner (3.0 ms/iter).
-Keep cr for much longer horizons / scan-hostile hardware; it is not the
-default anywhere.
+Cross-validated against the sequential-scan backend in
+tests/test_kkt_cr.py.  It does ~2x the FLOPs of the scan, so its O(log T)
+depth can only win at long horizons and small batches; on the H100 it is
+not measured yet, and it is not the default anywhere.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ the Lagrangian Hessian is approximated by the compact representation
 (Byrd, Nocedal & Schnabel 1994).  The block-tridiagonal KKT solve keeps the
 sigma*I + barrier base (stage-diagonal, C=0) and applies the low-rank
 correction by Sherman-Morrison-Woodbury with 2m extra triangular re-solves
-of the SAME factorization — the TPU-friendly alternative to densifying the
+of the SAME factorization — the structure-preserving alternative to densifying the
 KKT system.
 
 All functions are single-instance (the IPM vmaps over the batch); memory is

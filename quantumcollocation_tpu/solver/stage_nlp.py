@@ -147,10 +147,6 @@ class NLPFunctions:
     grad_cost: Callable  # (Z) -> (T, d)  gradient of costs ONLY (no J^T λ)
     dyn_eval: Callable  # (Z) -> (F, A, B, Jg, aux) in one pass
     hess_blocks_aux: Callable  # (Z, lam, w, aux) -> (H, C), reusing aux
-    # pieces for the fused-assembly kernel path (ops/pallas_dyn_assembly):
-    # the kernel provides F/A/B + defect curvature; these provide the rest
-    cost_hess: Callable = None  # (Z, w) -> (H, C) cost(+ineq) blocks only
-    jac_ineq: Callable = None  # (Z) -> (T, m, d)
 
 
 def make_nlp_functions(nlp: StageNLP, *, exact_hessian: bool = True) -> NLPFunctions:
@@ -304,14 +300,12 @@ def make_nlp_functions(nlp: StageNLP, *, exact_hessian: bool = True) -> NLPFunct
     # ---- fused per-iteration evaluation ----------------------------------- #
     grad_cost = jax.grad(total_cost)
 
-    def dyn_eval(Z, banks=None):
+    def dyn_eval(Z):
         """(F, A, B, Jg, aux) in ONE propagator-bank pass (analytic) or via
-        the generic AD evaluators (aux=None).  `banks` are optional
-        precomputed per-instance banks (the IPM hoists the Pallas bank
-        kernel outside its per-instance vmap)."""
+        the generic AD evaluators (aux=None)."""
         if nlp.analytic is not None:
             F, A, B, aux = nlp.analytic.dyn_eval(
-                Z, second_order=exact_hessian, banks=banks
+                Z, second_order=exact_hessian
             )
             return F, A, B, _jac_g_full(Z), aux
         F = defects(Z)
@@ -341,6 +335,4 @@ def make_nlp_functions(nlp: StageNLP, *, exact_hessian: bool = True) -> NLPFunct
         grad_cost=grad_cost,
         dyn_eval=dyn_eval,
         hess_blocks_aux=hess_blocks_aux,
-        cost_hess=_cost_hess,
-        jac_ineq=_jac_g_full,
     )

@@ -1,6 +1,6 @@
 """NamedTrajectory: the knot-point trajectory container, as a JAX pytree.
 
-TPU-first re-design of the reference's NamedTrajectories container (surface
+Batched re-design of the reference's NamedTrajectories container (surface
 inferred from call sites, see SURVEY.md §2b and
 /root/reference/test/test_utils.jl:109-117).  Differences by design:
 

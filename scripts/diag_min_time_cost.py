@@ -1,9 +1,9 @@
-"""Round-5 diagnostic: where does the min_time per-iteration cost go?
+"""Diagnostic: where does the min_time per-iteration cost go?
 
-BENCH_r04 measured min_time at ~6.4 s/iter (B=512, lanes, TPU) vs the
-hadamard path's ~26 ms/iter — a 250x gap the quality fix (kkt_aug) cannot
-explain by FLOPs alone (12 retry factorizations would be ~3x).  This script
-quantifies, on CPU (structure) at the bench shapes scaled down:
+The min_time iteration was measured far slower than the hadamard one at
+the same batch — a gap the kkt_aug lift cannot explain by FLOPs alone (12
+retry factorizations would be ~3x).  This script quantifies, on CPU
+(structure) at the bench shapes scaled down:
 
 1. retry pressure: per-iteration reg_dw (delta_w used in the accepted
    factorization) over the solve — from which the while_loop trip count

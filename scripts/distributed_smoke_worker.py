@@ -3,7 +3,7 @@
 Launched (twice) by tests/test_distributed.py.  Each process contributes 2
 virtual CPU devices; the pair forms one 4-device global mesh over the
 instance-batch axis — the exact multi-host wiring a real pod run uses
-(parallel/mesh.py::init_distributed docstring), minus the ICI/DCN fabric.
+(parallel/mesh.py::init_distributed docstring), over localhost TCP.
 
 argv: <coordinator_port> <process_id> <num_processes>
 Prints one JSON line with per-process results; exit code 0 on success.

@@ -234,133 +234,92 @@ class TestAnalyticAssembly:
         )
 
 
-class TestFusedAssemblyKernel:
-    """ops/pallas_dyn_assembly: ONE kernel == banks + dyn_eval +
-    defect_curvature, in scaled units (interpret mode on CPU)."""
+class TestBatchedAssembly:
+    """The XLA assembly as the IPM runs it — dyn_eval + hess_blocks_aux
+    vmapped over a batch, in the solver's SCALED units — against the
+    generic nested-AD evaluators of the same scaled NLP."""
 
-    def _check(self, prob, atol=5e-5):
-        nlp = prob.nlp
-        analytic = nlp.analytic
-        assert analytic is not None
+    def _check(self, prob, atol=1e-9):
+        nlp = prob.solver.nlp
+        assert nlp.analytic is not None
+        f_an = make_nlp_functions(nlp, exact_hessian=True)
+        f_ad = make_nlp_functions(
+            dataclasses.replace(nlp, analytic=None), exact_hessian=True
+        )
         B = 3
         rng = np.random.default_rng(3)
         Z = jnp.asarray(
             np.asarray(nlp.z0)[None]
-            + 0.05 * rng.standard_normal((B, *nlp.z0.shape)),
-            jnp.float64,
+            + 0.05 * rng.standard_normal((B, *nlp.z0.shape))
         )
-        lam = jnp.asarray(
-            rng.standard_normal((B, nlp.T - 1, nlp.s)), jnp.float64
-        )
-        out = analytic.assembly_batched(
-            Z, lam, use_kernel=True, interpret=True
-        )
-        assert out is not None
-        F_k, A_k, B_k, Hc_k, Cc_k = out
-
-        def ref_one(Zi, lami):
-            F, A, Bj, aux = analytic.dyn_eval(Zi, second_order=True)
-            Hc, Cc = analytic.defect_curvature(lami, aux)
-            return F, A, Bj, Hc, Cc
-
-        F_r, A_r, B_r, Hc_r, Cc_r = jax.vmap(ref_one)(Z, lam)
-        np.testing.assert_allclose(
-            np.asarray(F_k), np.asarray(F_r), atol=atol
-        )
-        np.testing.assert_allclose(
-            np.asarray(A_k), np.asarray(A_r), atol=atol
-        )
-        np.testing.assert_allclose(
-            np.asarray(B_k), np.asarray(B_r), atol=atol
-        )
-        np.testing.assert_allclose(
-            np.asarray(Hc_k), np.asarray(Hc_r), atol=atol
-        )
-        np.testing.assert_allclose(
-            np.asarray(Cc_k), np.asarray(Cc_r), atol=atol
-        )
+        lam = jnp.asarray(rng.standard_normal((B, nlp.T - 1, nlp.s)))
+        w = jnp.zeros((B, nlp.T, nlp.m))
+        F, A, Bj, Jg, aux = jax.vmap(f_an.dyn_eval)(Z)
+        H, C = jax.vmap(f_an.hess_blocks_aux)(Z, lam, w, aux)
+        A2, B2, Jg2 = jax.vmap(f_ad.jac_blocks)(Z)
+        H2, C2 = jax.vmap(f_ad.hess_blocks)(Z, lam, w)
+        for got, ref in (
+            (F, jax.vmap(f_ad.defects)(Z)), (A, A2), (Bj, B2), (Jg, Jg2),
+            (H, H2), (C, C2),
+        ):
+            np.testing.assert_allclose(
+                np.asarray(got), np.asarray(ref), atol=atol
+            )
 
     def test_exp_free_time(self):
-        prob = qct.UnitarySmoothPulseProblem(
+        self._check(qct.UnitarySmoothPulseProblem(
             _sys(), qct.GATES["H"], 9, 0.2,
-            ipopt_options=qct.SolverOptions(print_level=1),
             piccolo_options=qct.PiccoloOptions(
                 verbose=False, integrator="exponential"
             ),
             rng=np.random.default_rng(0),
-        )
-        self._check(prob)
+        ))
 
     def test_exp_fixed_time(self):
-        prob = qct.UnitarySmoothPulseProblem(
+        self._check(qct.UnitarySmoothPulseProblem(
             _sys(), qct.GATES["H"], 9, 0.2,
-            ipopt_options=qct.SolverOptions(print_level=1),
             piccolo_options=qct.PiccoloOptions(
                 verbose=False, integrator="exponential", free_time=False
             ),
             rng=np.random.default_rng(0),
-        )
-        self._check(prob)
+        ))
 
     def test_pade_free_time(self):
-        prob = qct.UnitarySmoothPulseProblem(
+        self._check(qct.UnitarySmoothPulseProblem(
             _sys(), qct.GATES["H"], 9, 0.2,
-            ipopt_options=qct.SolverOptions(print_level=1),
             piccolo_options=qct.PiccoloOptions(
                 verbose=False, integrator="pade", pade_order=4
             ),
             rng=np.random.default_rng(0),
-        )
-        self._check(prob)
+        ))
 
     def test_ket_pair_shared_bank(self):
         # two kets sharing one system/drive (multi-member group)
-        sys_q = _sys()
         psi0 = [np.array([1, 0], complex), np.array([0, 1], complex)]
         psi1 = [np.array([0, 1], complex), np.array([1, 0], complex)]
-        prob = qct.QuantumStateSmoothPulseProblem(
-            sys_q, psi0, psi1, 9, 0.2,
-            ipopt_options=qct.SolverOptions(print_level=1),
+        self._check(qct.QuantumStateSmoothPulseProblem(
+            _sys(), psi0, psi1, 9, 0.2,
             piccolo_options=qct.PiccoloOptions(
                 verbose=False, integrator="exponential"
             ),
             rng=np.random.default_rng(0),
+        ))
+
+    def test_batched_solve_matches_per_instance(self):
+        # lockstep batching changes no instance: a batch of two solved
+        # together lands on the iterates of each solved alone
+        prob = qct.UnitarySmoothPulseProblem(
+            _sys(), qct.GATES["H"], 11, 0.2, Q=100.0, R=1e-2,
+            ipopt_options=qct.SolverOptions(print_level=1, tol=1e-6),
+            piccolo_options=qct.PiccoloOptions(verbose=False),
+            rng=np.random.default_rng(0),
         )
-        self._check(prob)
-
-    def test_full_solve_fused_matches_unfused(self):
-        # end-to-end: 12 IPM iterations with the fused kernel (interpret)
-        # land on the same iterates as the banks path
-        import dataclasses as _dc
-
-        def build(fused):
-            return qct.UnitarySmoothPulseProblem(
-                _sys(), qct.GATES["H"], 11, 0.2, Q=100.0, R=1e-2,
-                ipopt_options=qct.SolverOptions(
-                    print_level=1, tol=1e-6, fused_assembly=fused
-                ),
-                piccolo_options=qct.PiccoloOptions(verbose=False),
-                rng=np.random.default_rng(0),
+        Z0 = prob.multistart_initial_decisions(
+            2, sigma=0.05, rng=np.random.default_rng(4)
+        )
+        both = prob.solver.solve(jnp.asarray(Z0), max_iter=12)
+        for b in range(2):
+            one = prob.solver.solve(jnp.asarray(Z0[b:b + 1]), max_iter=12)
+            np.testing.assert_allclose(
+                np.asarray(both.Z[b]), np.asarray(one.Z[0]), atol=1e-9
             )
-
-        p_off = build(False)
-        p_on = build(True)
-        assert p_on.solver.fused_assembly_on
-        assert not p_off.solver.fused_assembly_on
-        # route the fused path through interpret mode on CPU
-        analytic = p_on.solver.nlp.analytic
-        orig = analytic.assembly_batched
-        patched = lambda Zb, lb, **kw: orig(
-            Zb, lb, use_kernel=True, interpret=True
-        )
-        object.__setattr__(analytic, "assembly_batched", patched)
-        Z0 = np.asarray(p_off.initial_decision(2))
-        st_off = p_off.solver._solve_loop(p_off.solver.init_state(Z0), 12)
-        st_on = p_on.solver._solve_loop(p_on.solver.init_state(Z0), 12)
-        np.testing.assert_allclose(
-            np.asarray(st_on.Z), np.asarray(st_off.Z), atol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(st_on.kkt_err), np.asarray(st_off.kkt_err),
-            rtol=1e-4, atol=1e-8,
-        )

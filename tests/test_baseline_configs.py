@@ -42,7 +42,7 @@ class TestTwoQubitCNOT:
             rng=np.random.default_rng(7),
         )
         initial = float(qct.unitary_rollout_fidelity(prob.trajectory, sys))
-        # batched multi-start with rollout-consistent seeds (the TPU-native
+        # batched multi-start with rollout-consistent seeds (the batched
         # answer to landscape nonconvexity)
         prob.solve_multistart(n_seeds=4, sigma=0.3,
                               rng=np.random.default_rng(3), max_iter=60)

@@ -7,7 +7,7 @@ multi-process solve (zero cross-process collectives, per-shard loop
 conditions) at the topology shape the pod target implies (VERDICT r4 weak
 item: n>2-process coverage).  The reference has no distributed analog
 (single-process CI, /root/reference/.github/workflows/CI.yml:20-27); this
-covers the TPU-native scaling design of SURVEY.md §5.
+covers the batch-sharded scaling design of SURVEY.md §5.
 
 Runs in subprocesses so the test session's own jax (already initialized,
 single-process) is untouched.
